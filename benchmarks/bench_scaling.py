@@ -5,18 +5,15 @@ Measures the SP (time-sharded, halo-exchange) WBFM chain on meshes of
 reports efficiency(n) = throughput(n) / (n * throughput(1)) — the
 BASELINE.json north-star metric (target >= 85% at n >= 2).
 
-On a multi-chip TPU slice this is the real number; on a single chip it
-degrades to n=1 only; under
-``XLA_FLAGS=--xla_force_host_platform_device_count=N JAX_PLATFORMS=cpu``
-it validates the harness (CPU "devices" share cores, so CPU efficiency is
-NOT the TPU number — the JSON carries the platform so nobody mistakes it).
+Runs on the GPUs of one host (1, 2, 4 cards) and fails without a GPU; the
+JSON names the device and each card's name and power limit.
 
 Timing: iteration loop inside one jitted ``lax.scan``; the input is XORed
 with a run-time-opaque function of the carry so no iteration can be
 hoisted or dead-code-eliminated; two run lengths are differenced to cancel
-dispatch+readback latency (same method as bench.py).
+dispatch+readback latency.
 
-Usage: python benchmarks/bench_scaling.py
+Usage: python -m benchmarks.bench_scaling
 """
 
 from __future__ import annotations
@@ -88,17 +85,17 @@ def bench_sp(sp: int) -> tuple[float, str]:
 def main() -> None:
     import argparse
 
-    import tpu_sdr  # noqa: F401 — applies TPU_SDR_PLATFORM before jax init
-    import jax
+    from tpu_sdr.utils import runtime
+
+    runtime.configure_compile_cache()
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--out", default=None, metavar="FILE",
-                    help="also write the JSON record to FILE (the committed "
-                         "SCALING_r<N>.json round artifacts)")
+                    help="also write the JSON record to FILE")
     args = ap.parse_args()
 
-    n_dev = len(jax.devices())
-    platform = jax.devices()[0].platform
+    devices = runtime.require_gpu()
+    n_dev = len(devices)
     sps = [n for n in (1, 2, 4, 8, 16) if n <= n_dev]
     msps = {}
     flags = {}
@@ -111,16 +108,13 @@ def main() -> None:
         "metric": "sp_weak_scaling_efficiency",
         "value": worst_multi if worst_multi is not None else 1.0,
         "unit": "fraction (worst n>1; target >=0.85)",
-        "platform": platform,
-        "devices": n_dev,
+        "device": {"platform": devices[0].platform,
+                   "kind": devices[0].device_kind, "count": n_dev},
+        "card": runtime.card_info(),
         "msps_per_mesh": {str(n): round(v, 1) for n, v in msps.items()},
         "efficiency": {str(n): eff[n] for n in sps},
         "timing": {str(n): flags[n] for n in sps},
     }
-    if platform != "tpu":
-        record["note"] = ("harness validation only: CPU mesh devices share "
-                          "host cores, so this efficiency is NOT the TPU "
-                          "number")
     line = json.dumps(record)
     print(line)
     if args.out:

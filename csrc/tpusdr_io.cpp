@@ -1,14 +1,14 @@
-// tpusdr_io — native host-side runtime for the TPU SDR framework.
+// tpusdr_io — native host-side runtime of the SDR framework.
 //
 // The reference implements its entire sample-acquisition runtime in native
 // code (Rust): a blocking reader thread feeding a bounded channel
 // (/root/reference/examples/simple_fm.rs:55-132) and an rtl_tcp server with
 // a bounded 500-block queue (/root/reference/examples/rtl_tcp.rs:24,365).
-// This module is the TPU framework's native equivalent: a fixed-block ring
+// This module is the framework's native equivalent: a fixed-block ring
 // buffer with backpressure + drop accounting, a file/socket reader pump
 // thread, and the hot byte-path conversions (u8 I/Q -> planar f32 with fs/4
 // rotation, f32 -> s16 PCM, test-pattern continuity checking) that sit on
-// the host side of the host->TPU boundary.
+// the host side of the host->device boundary.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).
 
@@ -245,10 +245,7 @@ void tsdr_u8_iq_to_planar_f32(const uint8_t* iq, size_t n_pairs, int phase,
 // without leaving u8 space — negation of a centered sample (x = 2u - 255)
 // is the byte complement 255 - u, so rotation only swaps/complements the
 // I/Q bytes (the reference's own host-thread placement of this op,
-// simple_fm.rs:276-334).  Output feeds the Pallas kernel's
-// rot_impl="host" variant (tpu_sdr.ops.pallas_fm), which then runs no
-// full-width rotation ops on the device (-12% kernel time, round-5 A/B).
-// The per-period pattern is fixed once `phase` is known, so each case is
+// simple_fm.rs:276-334).  The per-period pattern is fixed once `phase` is known, so each case is
 // a straight-line 8-byte map the compiler auto-vectorizes.
 void tsdr_rotate_fs4_u8(const uint8_t* iq, uint8_t* out, size_t n_pairs,
                         int phase) {

@@ -38,7 +38,7 @@ def _run_capture_stdout(main, argv):
     return rc, out.buffer.getvalue()
 
 
-@pytest.mark.parametrize("mode", ["fir", "exact", "pallas"])
+@pytest.mark.parametrize("mode", ["fir", "exact", "boxcar"])
 def test_simple_fm_file_modes(capture_file, mode):
     from tpu_sdr.apps.simple_fm import main
 
@@ -48,9 +48,10 @@ def test_simple_fm_file_modes(capture_file, mode):
     assert len(audio) > 8000  # s16 samples emitted
     pcm = np.frombuffer(audio, dtype="<i2").astype(np.float64)
     snr = synth.tone_snr(pcm, 1_000.0, 32_000, skip=300)
-    # the exact integer chain (boxcar filters) scores lower on short
-    # captures with the startup transient included
-    floor = 18.0 if mode == "exact" else 25.0
+    # the exact integer chain and its float twin share the reference's
+    # boxcar filters, which score lower on short captures with the
+    # startup transient included
+    floor = 25.0 if mode == "fir" else 18.0
     assert snr >= floor, f"{mode}: {snr:.1f} dB"
 
 
@@ -101,7 +102,7 @@ def test_rtl_fm_rds_prints_station_text(tmp_path, capsys):
     from tpu_sdr.apps.rtl_fm import main
     from tpu_sdr.models import rds as R
 
-    pi, ps = 0xBEEF, "TPURADIO"
+    pi, ps = 0xBEEF, "RDSRADIO"
     groups = [R.make_group_0a(pi, 4, seg, ps[2 * seg: 2 * seg + 2])
               for seg in range(4)]
     bits = np.concatenate([np.concatenate(groups)] * 5)

@@ -1,6 +1,6 @@
 """Full production stack, end to end: simulated dongle broadcasting a
 synthesized WBFM station -> rtl_tcp server (native ring) -> protocol client
-over a real socket -> native feeder pump -> fused Pallas receive chain ->
+over a real socket -> native feeder pump -> streaming receive chain ->
 audio tone SNR.  This is the reference's whole usage story
 (rtl_tcp + a downstream demodulator) in one test."""
 
@@ -10,9 +10,9 @@ import time
 import numpy as np
 import pytest
 
-from tpu_sdr import api
+from tpu_sdr import DEFAULT_BUF_LENGTH, api
 from tpu_sdr.control import fake
-from tpu_sdr.ops import pallas_fm
+from tpu_sdr.models import wbfm
 from tpu_sdr.stream.feeder import BlockFeeder, RtlTcpClientSource
 from tpu_sdr.stream.rtl_tcp_server import RtlTcpServer
 from tpu_sdr.utils import synth
@@ -46,10 +46,9 @@ def test_radio_to_audio_over_tcp(radio_stack):
     src = RtlTcpClientSource("127.0.0.1", srv.bound_port)
     assert src.tuner_type == 5  # R820T
 
-    spec = pallas_fm.default_spec()
-    feeder = BlockFeeder(src, block_bytes=spec.chunk_bytes,
+    feeder = BlockFeeder(src, block_bytes=DEFAULT_BUF_LENGTH,
                          queue_blocks=8).start()
-    streamer = pallas_fm.PallasWbfmStreamer(interpret=True)
+    streamer = wbfm.WbfmStreamer(wbfm.WbfmConfig(filter_mode="fir"))
 
     audio = []
     for i, block in enumerate(feeder.blocks()):
@@ -59,6 +58,8 @@ def test_radio_to_audio_over_tcp(radio_stack):
     feeder.stop()
 
     out = np.concatenate(audio)
-    assert out.size >= 3 * spec.audio_per_chunk
+    # 4 reads of 131,072 samples at 1.02 Msps -> 32 kHz, less the pending
+    # residual of the last read
+    assert out.size >= 4 * (DEFAULT_BUF_LENGTH // 2) * 32 // 1020 - 32
     snr = synth.tone_snr(out.astype(np.float64), 1_000.0, 32_000, skip=400)
     assert snr >= 40.0, f"end-to-end tone SNR {snr:.1f} dB"

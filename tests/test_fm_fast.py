@@ -147,7 +147,7 @@ def test_boxcar_chain_matches_exact_reference_output():
 
 
 def test_split_bf16_decimator_matches_f32():
-    """The split-precision bf16 MXU decimator must agree with the f32 path
+    """The split-precision bf16 decimator must agree with the f32 path
     to well above the 60 dB fidelity bound (samples x255 are exact in bf16;
     hi+lo taps give ~16-bit weight precision)."""
     u8, _ = synth.synth_wbfm_u8(245_760, capture_rate=1_020_000)

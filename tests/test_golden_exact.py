@@ -13,7 +13,14 @@ import pytest
 from tpu_sdr.ops import exact
 from tpu_sdr.models import wbfm_exact
 
-from golden_vectors import BUF_SIGNED, LOWPASS, DEMOD_EXPECTED, RESULT
+from tpu_sdr.utils.golden import (
+    BUF_SIGNED,
+    DEMOD_EXPECTED,
+    LOWPASS,
+    RESULT,
+    oracle_demodulate,
+    rotate_90_numpy,
+)
 
 DOWNSAMPLE = 6  # optimal_settings(94.9M, 170k) -> (1_000_000/170_000)+1
 
@@ -95,104 +102,17 @@ def test_resampler_block_split_invariance(split):
 # (simple_fm.rs:284-296).
 # ---------------------------------------------------------------------------
 
-def _rotate_90_numpy(buf: np.ndarray) -> np.ndarray:
-    buf = buf.copy()
-    for i in range(0, len(buf), 8):
-        tmp = 255 - buf[i + 3]
-        buf[i + 3] = buf[i + 2]
-        buf[i + 2] = tmp
-        buf[i + 4] = 255 - buf[i + 4]
-        buf[i + 5] = 255 - buf[i + 5]
-        tmp = 255 - buf[i + 6]
-        buf[i + 6] = buf[i + 7]
-        buf[i + 7] = tmp
-    return buf
-
-
 def test_rotate_90_matches_reference_shuffle():
     rng = np.random.default_rng(0)
     buf = rng.integers(0, 256, size=512, dtype=np.uint8)
     got = np.asarray(exact.rotate_90_u8(jnp.asarray(buf)))
-    np.testing.assert_array_equal(got, _rotate_90_numpy(buf))
+    np.testing.assert_array_equal(got, rotate_90_numpy(buf))
 
 
 # ---------------------------------------------------------------------------
 # Full chain: u8 blocks through the composed model vs a plain-python oracle
 # implementing the reference loop verbatim.
 # ---------------------------------------------------------------------------
-
-def _oracle_demodulate(blocks, downsample=6, fast=170_000, slow=32_000):
-    """Direct python port of the reference Demod loop (simple_fm.rs:232-426),
-    used only as a test oracle."""
-    import math
-
-    prev_index = 0
-    lp_now = [0, 0]
-    demod_pre = [0, 0]
-    now_lpr = 0
-    prev_lpr_index = 0
-    audio = []
-
-    def wrap32(v):
-        v &= 0xFFFFFFFF
-        return v - (1 << 32) if v >= (1 << 31) else v
-
-    def tdiv(a, b):
-        q = abs(a) // abs(b)
-        return q if (a >= 0) == (b >= 0) else -q
-
-    def fast_atan2(y, x):
-        pi4, pi34 = 1 << 12, 3 * (1 << 12)
-        if x == 0 and y == 0:
-            return 0
-        yabs = abs(y)
-        if x >= 0:
-            angle = pi4 - tdiv(wrap32(pi4 * (x - yabs)), x + yabs)
-        else:
-            angle = pi34 - tdiv(wrap32(pi4 * (x + yabs)), yabs - x)
-        return -angle if y < 0 else angle
-
-    for block in blocks:
-        buf = _rotate_90_numpy(np.asarray(block, dtype=np.uint8)).astype(np.int64) - 127
-        comp = [(int(buf[i]), int(buf[i + 1])) for i in range(0, len(buf), 2)]
-        # low_pass_complex
-        lowpassed = []
-        for c in comp:
-            lp_now[0] += c[0]
-            lp_now[1] += c[1]
-            prev_index += 1
-            if prev_index < downsample:
-                continue
-            lowpassed.append((lp_now[0], lp_now[1]))
-            lp_now = [0, 0]
-            prev_index = 0
-        if not lowpassed:
-            continue
-        # fm_demod
-        demod = []
-        a, b = lowpassed[0], demod_pre
-        cr = wrap32(a[0] * b[0] + a[1] * b[1])
-        ci = wrap32(a[1] * b[0] - a[0] * b[1])
-        ang = math.atan2(ci, cr)
-        demod.append(int(ang / math.pi * (1 << 14)))
-        for i in range(1, len(lowpassed)):
-            a, b = lowpassed[i], lowpassed[i - 1]
-            cr = wrap32(a[0] * b[0] + a[1] * b[1])
-            ci = wrap32(a[1] * b[0] - a[0] * b[1])
-            demod.append(fast_atan2(ci, cr))
-        demod_pre = list(lowpassed[-1])
-        # low_pass_real
-        for v in demod:
-            v16 = np.int16(np.int32(v) & 0xFFFF)  # `pcm as i16`
-            now_lpr += int(v16)
-            prev_lpr_index += slow
-            if prev_lpr_index < fast:
-                continue
-            audio.append(np.int16(np.int32(tdiv(now_lpr, fast // slow)) & 0xFFFF))
-            prev_lpr_index -= fast
-            now_lpr = 0
-    return np.asarray(audio, dtype=np.int16)
-
 
 def test_full_chain_vs_oracle():
     rng = np.random.default_rng(42)
@@ -201,5 +121,5 @@ def test_full_chain_vs_oracle():
 
     streamer = wbfm_exact.WbfmExactStreamer()
     got = np.concatenate([streamer.demodulate(b) for b in blocks])
-    expected = _oracle_demodulate(blocks)
+    expected = oracle_demodulate(blocks)
     np.testing.assert_array_equal(got, expected)

@@ -1,4 +1,4 @@
-"""Equivalence of the MXU-shaped ops against their reference formulations.
+"""Equivalence of the matmul-shaped ops against their reference formulations.
 
 The banded-matmul decimator and frame-matmul resampler are pure layout
 transformations of the same filters — they must match the conv/gather forms

@@ -135,16 +135,24 @@ def test_u8_iq_conversion_matches_jax_ops(phase):
 
 
 @pytest.mark.parametrize("phase", [0, 1, 2, 3])
-def test_rotate_fs4_u8_native_matches_numpy(phase):
-    """The native byte-map rotation must equal the numpy reference, and
+def test_rotate_fs4_u8_native_matches_numpy(phase, monkeypatch):
+    """The native byte-map rotation must equal the numpy fallback, and
     decoding its output as centered floats must equal the f32 rotation."""
     from tpu_sdr.native import rotate_fs4_u8
-    from tpu_sdr.ops.pallas_fm import host_rotate_fs4_u8
 
     rng = np.random.default_rng(11)
     buf = rng.integers(0, 256, size=1024, dtype=np.uint8)
     got = rotate_fs4_u8(buf, phase=phase)
-    np.testing.assert_array_equal(got, host_rotate_fs4_u8(buf, phase=phase))
+    with monkeypatch.context() as m:
+        m.setattr(native, "available", lambda: False)
+        np.testing.assert_array_equal(got, rotate_fs4_u8(buf, phase=phase))
+    if phase == 0:  # the reference's own 8-byte pattern
+        import jax.numpy as jnp
+
+        from tpu_sdr.ops.exact import rotate_90_u8
+
+        np.testing.assert_array_equal(
+            got, np.asarray(rotate_90_u8(jnp.asarray(buf))))
 
     # centered decode of the rotated bytes == rotation of the centered decode
     re_n, im_n = u8_iq_to_planar_f32(buf, phase=phase, scale=2.0)  # x255 scale

@@ -127,7 +127,7 @@ def _groups_bits(groups: list[np.ndarray], repeats: int = 3) -> np.ndarray:
     return np.concatenate([one] * repeats)
 
 
-def _ps_rt_bits(pi=0xF201, ps="TPU SDR!", rt="HELLO FROM TPU_SDR\r",
+def _ps_rt_bits(pi=0xF201, ps="RDS SDR!", rt="HELLO FROM THE SDR\r",
                 repeats=3) -> np.ndarray:
     rt = rt + " " * (-len(rt) % 4)
     groups = [R.make_group_0a(pi, 9, seg, ps[2 * seg: 2 * seg + 2])
@@ -156,8 +156,8 @@ def test_rds_stream_decoder_text():
     assert rx.locked
     assert rx.text.pi == 0xF201
     assert rx.text.pty == 9
-    assert rx.text.ps == "TPU SDR!"
-    assert rx.text.rt == "HELLO FROM TPU_SDR"
+    assert rx.text.ps == "RDS SDR!"
+    assert rx.text.rt == "HELLO FROM THE SDR"
     assert any(e.startswith("PS:") for e in events)
     assert any(e.startswith("RT:") for e in events)
     assert rx.sync.groups_ok >= 10

@@ -4,7 +4,7 @@ The original C rtl_fm accepts repeated ``-f`` (and ``-f a:b:c`` ranges)
 and hops between them on squelch — the surface the reference port dropped
 (its simple_fm takes one frequency).  These tests drive the full arc on
 the register-level fake: frequency-aware StationSource antennas at
-ABSOLUTE frequencies, PLL-decoded retunes, squelch measurement on the TPU
+ABSOLUTE frequencies, PLL-decoded retunes, squelch measurement on the device
 data plane, host hop decisions.
 """
 

@@ -25,7 +25,7 @@ def _serial_reference(u8_2d: np.ndarray, config: wbfm.WbfmConfig) -> np.ndarray:
 
     Deliberately not WbfmStreamer: the sharded chain consumes the whole
     stream in one jitted step, so the reference must too — the streamer
-    trims input to its 2*decim*down quantum (round-3 alignment fix) and
+    trims input to its 2*decim*down quantum (the aligned-resampler quantum) and
     would emit fewer samples for these capture lengths."""
     import jax.numpy as jnp
 
@@ -95,7 +95,7 @@ def test_sharded_matches_serial_aligned(filter_mode):
 def test_sharded_carry_io_streams_across_blocks(dp, sp):
     """carry_io=True: two consecutive blocks, each seeded with the
     previous block's end carries, must match the serial chain streaming
-    its WbfmState across the same two blocks (round-5 feature — without
+    its WbfmState across the same two blocks (without
     it the XLA sharded chain restarted the stream every block)."""
     import jax.numpy as jnp
 

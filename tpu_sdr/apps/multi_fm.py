@@ -1,7 +1,7 @@
 """multi_fm — demodulate MANY WBFM stations from one wideband capture.
 
 The reference's simple_fm tunes a single station per process
-(/root/reference/examples/simple_fm.rs); this app is the TPU-native
+(/root/reference/examples/simple_fm.rs); this app is the accelerator
 upgrade: a wideband capture is split by the polyphase channelizer and
 every selected channel's WBFM tail runs in parallel on the device
 (models/wbfm_wideband, BASELINE.json config #3).
@@ -38,8 +38,6 @@ def main(argv=None) -> int:
     p.add_argument("--out-dir", default=None,
                    help="write station_<ch>.raw files here (default: stdout "
                         "when one channel, ./ otherwise)")
-    p.add_argument("--pallas", action="store_true",
-                   help="use the fused Pallas channelizer front")
     p.add_argument("--rds", action="store_true",
                    help="decode RDS on every station; [rds ch<N>] lines "
                         "go to stderr")
@@ -52,7 +50,7 @@ def main(argv=None) -> int:
     channels = tuple(int(c) for c in args.channels.split(","))
     config = wb.WidebandConfig(num_channels=args.num_channels,
                                channels=channels, emit_mpx=args.rds)
-    streamer = wb.WidebandStreamer(config, use_pallas=args.pallas)
+    streamer = wb.WidebandStreamer(config)
     rds_rxs = None
     if args.rds:
         from tpu_sdr.models import rds as rds_mod

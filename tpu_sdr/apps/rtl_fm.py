@@ -1,7 +1,7 @@
 """rtl_fm — multi-mode narrowband receiver CLI.
 
 The reference crate ports only the WBFM slice of the original C ``rtl_fm``;
-this app restores the classic multi-mode surface on the TPU data plane:
+this app restores the classic multi-mode surface on the JAX data plane:
 
     -M wbfm   broadcast FM (the simple_fm chain)
     -M fm     narrow FM (12.5 kHz channel)

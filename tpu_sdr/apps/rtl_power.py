@@ -1,7 +1,7 @@
 """rtl_power — wideband spectrum scanner (osmocom ``rtl_power`` model).
 
 Beyond-reference: hops the tuner across a frequency range, integrates a
-Welch PSD per hop on the TPU data plane (ops/spectrum.py), and emits
+Welch PSD per hop on the JAX data plane (ops/spectrum.py), and emits
 osmocom-compatible CSV rows::
 
     date, time, Hz low, Hz high, Hz step, samples, dB, dB, ...

@@ -4,7 +4,7 @@ Mirrors /root/reference/examples/simple_fm.rs: hard-coded-by-default station
 config, a receive thread feeding a demod thread through a queue (the
 reference's mpsc pipeline, simple_fm.rs:55-63), or file mode which streams a
 raw capture through the same demodulator (simple_fm.rs:65-84).  The demod
-thread dispatches blocks to the JAX data plane (TPU when present).
+thread dispatches blocks to the JAX data plane (the GPU when present).
 
 Play with:  python -m tpu_sdr.apps.simple_fm | play -r 32k -t raw -e s -b 16 -c 1 -V1 -
 
@@ -12,7 +12,6 @@ Modes (--mode):
   exact   bit-exact integer chain (the conformance path)
   boxcar  float reference-parity chain (fast, >=60 dB vs exact)
   fir     FIR quality chain (best audio)
-  pallas  fused Pallas TPU kernel chain (fastest; interpreted off-TPU)
   stereo  pilot-tone stereo decoder -> interleaved L/R s16 (play with -c 2)
 
 ``--rds`` (stereo mode) additionally decodes the Radio Data System from
@@ -70,18 +69,12 @@ def make_demodulator(mode: str, deemph_us: float = 0.0, rds: bool = False):
 
         desc = "stereo multiplex decoder (pilot-tone)"
         return demod_stereo, desc + (" + RDS" if rds else "")
-    if mode == "pallas":
-        from tpu_sdr.ops.pallas_fm import PallasWbfmStreamer
-
-        streamer = PallasWbfmStreamer()  # interpret auto off-TPU
-        desc = "fused Pallas chain"
-    else:
-        filter_mode = "boxcar" if mode == "boxcar" else "fir"
-        streamer = wbfm.WbfmStreamer(wbfm.WbfmConfig(
-            filter_mode=filter_mode, deemphasis_tau=deemph_us * 1e-6))
-        desc = f"float chain ({filter_mode})"
-        if deemph_us:
-            desc += f", {deemph_us:.0f}us de-emphasis"
+    filter_mode = "boxcar" if mode == "boxcar" else "fir"
+    streamer = wbfm.WbfmStreamer(wbfm.WbfmConfig(
+        filter_mode=filter_mode, deemphasis_tau=deemph_us * 1e-6))
+    desc = f"float chain ({filter_mode})"
+    if deemph_us:
+        desc += f", {deemph_us:.0f}us de-emphasis"
 
     from tpu_sdr.native import f32_to_s16
 
@@ -145,7 +138,7 @@ def main(argv=None) -> int:
                         "local device (tunes it to --freq)")
     p.add_argument("--device", type=int, default=0)
     p.add_argument("--mode",
-                   choices=["exact", "boxcar", "fir", "pallas", "stereo"],
+                   choices=["exact", "boxcar", "fir", "stereo"],
                    default="fir")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a jax.profiler device trace to DIR")

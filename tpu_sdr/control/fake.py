@@ -359,7 +359,7 @@ def decode_tuned_freq(backend: "FakeUsbBackend") -> int:
     RF frequency in Hz.
 
     This is the register-level ground truth for frequency-aware simulated
-    sources (NEXT.md): it reads ONLY what the driver actually wrote —
+    sources: it reads ONLY what the driver actually wrote —
     tuner regs 0x10 (mixer divider), 0x14 (Nint as 4*Ni2c + Si2c + 13),
     0x15/0x16 (SDM fraction, gated by the 0x12 power-down bit), and demod
     page-1 0x19-0x1b (DDC IF as a signed 22-bit fraction of the RTL

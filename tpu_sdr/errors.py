@@ -1,6 +1,6 @@
 """Error layer for tpu-sdr.
 
-TPU-native re-design of the reference's error layer
+Re-design of the reference's error layer
 (/root/reference/src/error.rs:11-44): the reference generates an enum with
 ``Usb(rusb::Error)`` and ``RtlsdrErr(String)`` variants via a macro.  Here we
 use a small exception hierarchy instead — idiomatic Python — while keeping the

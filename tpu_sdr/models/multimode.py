@@ -2,8 +2,8 @@
 
 The reference implements WBFM only; the original C ``rtl_fm`` that its DSP
 was ported from also serves AM, narrow FM, and SSB (rtl_fm's ``-M`` modes).
-This model family restores those capabilities TPU-natively on the shared
-front end (u8 -> rotate -> banded-MXU FIR decimation to the channel rate):
+This model family restores those capabilities on the device, on the shared
+front end (u8 -> rotate -> banded-matmul FIR decimation to the channel rate):
 
 * **AM**: envelope detector ``sqrt(I² + Q²)`` with DC removal (block mean —
   the same carry-free estimator rtl_fm uses per block).
@@ -13,7 +13,7 @@ front end (u8 -> rotate -> banded-MXU FIR decimation to the channel rate):
   shift+LPF selects one sideband; works because the front decimator
   already band-limited the channel).
 
-Everything reuses tpu_sdr.ops.fm (streaming carries, MXU filters, aligned
+Everything reuses tpu_sdr.ops.fm (streaming carries, matmul filters, aligned
 polyphase resampler to the audio rate).
 """
 

@@ -12,7 +12,7 @@ flywheel in :class:`GroupSynchronizer`) and PS/RadioText assembly
 (:class:`RdsText`); :class:`RdsStreamDecoder` ties the whole receiver
 together for the CLIs (``rtl_fm --rds``).
 
-Chain (all tpu_sdr.ops.fm building blocks, banded-MXU filters):
+Chain (all tpu_sdr.ops.fm building blocks, banded-matmul filters):
 
     y ──BPF19k→ p ──/A→ cosθ ──(4c³-3c)→ cos3θ ─┐
     y ──BPF57k (same length; arms stay aligned) ─┴─ × ─LPF2.4k→ b(t)

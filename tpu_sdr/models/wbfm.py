@@ -1,4 +1,4 @@
-"""Fast float WBFM demodulator — the TPU throughput path.
+"""Fast float WBFM demodulator — the accelerator throughput path.
 
 Same receive chain as the reference ``simple_fm``
 (/root/reference/examples/simple_fm.rs:256-269) but redesigned for XLA:
@@ -59,8 +59,10 @@ class WbfmConfig:
     emit_mpx: bool = False
     # "split_bf16": decimator matmuls in split-precision bfloat16 (the u8
     #   samples x255 are exact 9-bit integers, hence exact in bf16; taps are
-    #   carried as a hi+lo bf16 pair for ~16-bit weight precision) — ~2x the
-    #   f32 MXU rate with >90 dB agreement.  "f32": plain float32.
+    #   carried as a hi+lo bf16 pair for ~16-bit weight precision): two bf16
+    #   passes with f32 accumulation, >90 dB agreement with f32.  "f32":
+    #   plain float32 (Precision.HIGHEST).  Which is faster on the GPU is
+    #   not measured yet.
     mxu_precision: str = "split_bf16"
 
     @property
@@ -87,7 +89,7 @@ class WbfmState(NamedTuple):
 class WbfmParams:
     """Precomputed filter banks (host-designed, device-resident).
 
-    ``decim_W`` and ``resamp_V``/``box_V`` are the MXU-shaped matmul forms
+    ``decim_W`` and ``resamp_V``/``box_V`` are the matmul forms
     of the same filters (see tpu_sdr.ops.fm banded/aligned ops).
     """
 
@@ -97,7 +99,7 @@ class WbfmParams:
     resamp_V: jax.Array  # (down + T - 1, up) aligned polyphase resampler
     box_V: jax.Array  # (down, up) aligned boxcar resampler
     decim_W_split: tuple[jax.Array, jax.Array] | None = None  # bf16 hi/lo
-    # 4-frames-per-row packed resampler (N = 4*up MXU lanes; round 4):
+    # 4-frames-per-row packed resampler (N = 4*up output columns):
     # usable whenever the block length divides down*4
     resamp_V4: jax.Array | None = None
 
@@ -197,7 +199,7 @@ def demodulate_block(buf: jax.Array, state: WbfmState, params: WbfmParams,
             # Frame-matmul path: valid while the stream sticks to aligned
             # block sizes (the fractional phase then stays 0 forever).
             # 4-frame N-lane packed V when the block divides down*4
-            # (round-4 MXU packing; identical output to ~1e-7).
+            # (identical output to ~1e-7).
             V = (params.resamp_V4
                  if params.resamp_V4 is not None and n_out % (down * 4) == 0
                  else params.resamp_V)

@@ -2,8 +2,8 @@
 
 The mono chain's discriminator output *is* the FM multiplex signal at the
 demod rate (170 kHz): (L+R)/2 baseband, a 19 kHz pilot, and (L-R)/2 DSB-SC
-around 38 kHz.  This model decodes it TPU-natively on top of the existing
-front end (XLA or fused Pallas):
+around 38 kHz.  This model decodes it on the device on top of the existing
+front end:
 
     y(t) ──LPF15k──────────────────────────► S = (L+R)/2 ─┐
       │                                                    ├─► L = S+D
@@ -12,7 +12,7 @@ front end (XLA or fused Pallas):
       └────────────── × ──────LPF15k── ×2 ┴──► D = (L−R)/2 ┘
 
 followed by the aligned polyphase resampler (170k -> 32k) per channel.
-Every filter is the banded MXU matmul (ops/fm.banded_decim_apply with
+Every filter is the banded matmul (ops/fm.banded_decim_apply with
 decim=1); carrier amplitude is normalized per block by the pilot power
 (narrowband ⇒ mean(p²) = A²/2).  Streaming carries: three FIR histories +
 two resampler histories.

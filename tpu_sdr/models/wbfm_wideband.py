@@ -1,8 +1,9 @@
 """Wideband multi-station WBFM: one capture -> K channels -> N audio streams.
 
-The reference tunes ONE station per process (examples/simple_fm.rs); a TPU
-chip instead ingests a wideband capture, splits it with the PFB channelizer
-(tpu_sdr.ops.channelizer — fused branch-filter + channel-DFT on the MXU),
+The reference tunes ONE station per process (examples/simple_fm.rs); one
+accelerator instead ingests a wideband capture, splits it with the PFB
+channelizer (tpu_sdr.ops.channelizer — fused branch-filter + channel-DFT as
+one convolution),
 and runs the WBFM tail (quadrature discriminator + polyphase audio
 resampler) on every selected channel in parallel (vmap over stations).
 This is BASELINE.json config #3's receive topology.
@@ -73,8 +74,8 @@ class WidebandParams:
     h_poly: jax.Array          # (rows, K) PFB branch matrix
     pfb_W: jax.Array           # fused branch+DFT conv weights
     resamp_V: jax.Array        # (down + T - 1, up) aligned resampler
-    # 4-frames-per-row packed variant (N-lane MXU packing, round 4) —
-    # selected at trace time when the channel block divides down*4
+    # 4-frames-per-row packed variant (4x wider matmul output, same
+    # result) — selected at trace time when the channel block divides down*4
     resamp_V4: jax.Array | None = None
 
 
@@ -148,78 +149,16 @@ jax.tree_util.register_pytree_node(
 )
 
 
-# ---------------------------------------------------------------------------
-# Fused-Pallas channelizer front (optional)
-# ---------------------------------------------------------------------------
-
-@partial(jax.jit, static_argnames=("config", "spec", "interpret"))
-def demodulate_block_pallas(data_i16, pfb_carry, quad: F.QuadState,
-                            resamp_hist, m2_hi, m2_lo, resamp_V,
-                            config: WidebandConfig, spec,
-                            interpret: bool = False):
-    """Same receive topology with the fused Pallas PFB front
-    (ops/pallas_channelizer): u8 unpack + frame windows + analysis matmuls
-    in VMEM, XLA tail per selected channel."""
-    from tpu_sdr.ops import pallas_channelizer as pc
-
-    up, down = config.resample_up, config.resample_down
-    y_re, y_im, new_carry = pc.channelize_fused(
-        data_i16, pfb_carry, m2_hi, m2_lo, spec, interpret=interpret)
-    ch = jnp.asarray(config.channels)
-    zr = y_re[:, ch].T
-    zi = y_im[:, ch].T
-
-    def tail(zr1, zi1, q_re, q_im, hist):
-        z, q = F.quadrature_demod(zr1, zi1, F.QuadState(q_re, q_im))
-        audio, rs = F.aligned_resample(
-            z, resamp_V, up, down, F.AlignedResampleState(hist))
-        return audio, z, q, rs
-
-    audio, mpx, quads, rss = jax.vmap(tail)(
-        zr, zi, quad.pre_re, quad.pre_im, resamp_hist)
-    out_state = (new_carry, F.QuadState(quads.pre_re, quads.pre_im), rss.hist)
-    if config.emit_mpx:
-        return (audio, mpx) + out_state
-    return (audio,) + out_state
-
-
 class WidebandStreamer:
-    """Host wrapper: feed wideband u8 blocks, get (stations, m) audio.
+    """Host wrapper: feed wideband u8 blocks, get (stations, m) audio."""
 
-    ``use_pallas=True`` swaps the channelizer for the fused Pallas kernel
-    (same numerics; interpreted off-TPU).
-    """
-
-    def __init__(self, config: WidebandConfig | None = None,
-                 use_pallas: bool = False, interpret: bool | None = None):
+    def __init__(self, config: WidebandConfig | None = None):
         self.config = config or WidebandConfig()
         self.params = make_params(self.config)
         self.state = init_state(self.config, self.params)
         self._pending = np.zeros(0, dtype=np.uint8)
         self._quantum = 2 * self.config.num_channels * self.config.resample_down
         self.last_mpx: np.ndarray | None = None  # set when config.emit_mpx
-        self.use_pallas = use_pallas
-        if use_pallas:
-            import jax as _jax
-
-            from tpu_sdr.ops import pallas_channelizer as pc
-
-            # frames per chunk: multiple of 8 AND of the resampler 'down'
-            frames = 8 * self.config.resample_down
-            self.pspec = pc.PallasPfbSpec(
-                self.config.num_channels, self.config.taps_per_branch + 1,
-                frames)
-            self.pspec.validate()
-            self.m2_hi, self.m2_lo = pc.make_packed_matrices(
-                chan.design_pfb(self.config.num_channels,
-                                self.config.taps_per_branch,
-                                cutoff_frac=self.config.pfb_cutoff_frac))
-            self.interpret = (_jax.default_backend() != "tpu"
-                              if interpret is None else interpret)
-            self._quantum = self.pspec.chunk_bytes
-            H = self.pspec.branch_rows - 1
-            self.pfb_carry = jnp.zeros((2 * H, self.config.num_channels),
-                                       jnp.float32)
 
     def demodulate(self, buf: np.ndarray) -> np.ndarray:
         data = np.concatenate([self._pending, np.asarray(buf, np.uint8)])
@@ -231,23 +170,6 @@ class WidebandStreamer:
                 self.last_mpx = np.zeros((len(self.config.channels), 0),
                                          np.float32)
             return np.zeros((len(self.config.channels), 0), np.float32)
-        if self.use_pallas:
-            from tpu_sdr.ops import pallas_channelizer as pc
-
-            d16 = pc.view_u8_as_i16(data[:usable], self.pspec)
-            out = demodulate_block_pallas(
-                jnp.asarray(d16), self.pfb_carry, self.state.quad,
-                self.state.resamp.hist, self.m2_hi, self.m2_lo,
-                self.params.resamp_V, self.config, self.pspec,
-                interpret=self.interpret)
-            if emit_mpx:
-                audio, mpx, self.pfb_carry, quad, rhist = out
-                self.last_mpx = np.asarray(mpx)
-            else:
-                audio, self.pfb_carry, quad, rhist = out
-            self.state = WidebandState(
-                self.state.pfb, quad, F.AlignedResampleState(rhist))
-            return np.asarray(audio)
         if emit_mpx:
             audio, mpx, self.state = demodulate_block(
                 jnp.asarray(data[:usable]), self.state, self.params,

@@ -7,42 +7,54 @@ fixed-block ring buffer with backpressure/drop accounting, an fd reader pump
 thread, and the hot host-side byte conversions.
 
 The shared library is compiled on demand with ``g++`` (no pybind11 in this
-environment; plain C ABI + ctypes).  Everything degrades gracefully:
-``available()`` is False when the toolchain or binary is missing and callers
-fall back to pure-Python paths.
+environment; plain C ABI + ctypes) into ``_build/``, under a file name keyed
+by a hash of the source, the compiler and its flags — so a library is
+only ever loaded by a tree whose sources built it, and a copied tree with
+other sources rebuilds instead of loading a stale binary.  The flags are
+portable (no ``-march=native``): the binary may run on another host's CPU
+than the one that built it.  Everything degrades gracefully:
+``available()`` is False when the toolchain or binary is missing or stale,
+and callers fall back to pure-Python paths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
 
 _LIB_DIR = os.path.join(os.path.dirname(__file__), "_build")
-_LIB_PATH = os.path.join(_LIB_DIR, "libtpusdr_io.so")
 _SRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc", "tpusdr_io.cpp")
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _tried = False
 
 
-def _build() -> bool:
-    cxx = os.environ.get("CXX", "g++")
-    if shutil.which(cxx) is None or not os.path.exists(_SRC):
+def build_key(source: bytes, cxx: str, flags=CXXFLAGS) -> str:
+    """Content key of one build: source bytes, compiler and flags."""
+    h = hashlib.sha256(source)
+    h.update("\0".join((cxx,) + tuple(flags)).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(key: str) -> str:
+    return os.path.join(_LIB_DIR, f"libtpusdr_io-{key}.so")
+
+
+def _build(cxx: str, out: str) -> bool:
+    if shutil.which(cxx) is None:
         return False
     os.makedirs(_LIB_DIR, exist_ok=True)
-    tmp = _LIB_PATH + f".tmp{os.getpid()}"
-    cmd = [cxx, "-O3", "-std=c++17", "-fPIC", "-Wall", "-shared",
-           os.path.abspath(_SRC), "-o", tmp, "-lpthread"]
-    native = subprocess.run(cmd + ["-march=native"], capture_output=True)
-    if native.returncode != 0:  # portable fallback
-        plain = subprocess.run(cmd, capture_output=True)
-        if plain.returncode != 0:
-            return False
-    os.replace(tmp, _LIB_PATH)
+    tmp = out + f".tmp{os.getpid()}"
+    cmd = [cxx, *CXXFLAGS, os.path.abspath(_SRC), "-o", tmp, "-lpthread"]
+    if subprocess.run(cmd, capture_output=True).returncode != 0:
+        return False
+    os.replace(tmp, out)
     return True
 
 
@@ -87,20 +99,26 @@ def load() -> ctypes.CDLL | None:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.environ.get("TPU_SDR_NO_NATIVE"):
+        if os.environ.get("TPU_SDR_NO_NATIVE") or not os.path.exists(_SRC):
             return None
-        stale = (not os.path.exists(_LIB_PATH)
-                 or (os.path.exists(_SRC)
-                     and os.path.getmtime(_SRC) > os.path.getmtime(_LIB_PATH)))
-        if stale and not _build() and not os.path.exists(_LIB_PATH):
+        cxx = os.environ.get("CXX", "g++")
+        with open(_SRC, "rb") as f:
+            path = lib_path(build_key(f.read(), cxx))
+        if not os.path.exists(path) and not _build(cxx, path):
             return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-            _declare(lib)
-            _lib = lib
-        except OSError:
-            _lib = None
+        _lib = open_library(path)
         return _lib
+
+
+def open_library(path: str) -> ctypes.CDLL | None:
+    """dlopen ``path`` and declare its ABI; None if it cannot be opened or
+    lacks a symbol this module declares."""
+    try:
+        lib = ctypes.CDLL(path)
+        _declare(lib)
+    except (OSError, AttributeError):
+        return None
+    return lib
 
 
 def available() -> bool:

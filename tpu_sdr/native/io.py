@@ -130,11 +130,21 @@ def u8_iq_to_planar_f32(iq: np.ndarray, phase: int = 0,
 
 
 def rotate_fs4_u8(iq: np.ndarray, phase: int = 0) -> np.ndarray:
-    """fs/4 rotation as a pure byte map (stays u8): feeds the fused
-    kernel's ``rot_impl='host'`` variant (-12% device time, round-5 A/B).
-    Native SIMD path with a numpy fallback; see
-    ``pallas_fm.host_rotate_fs4_u8`` for the map's derivation."""
+    """fs/4 rotation as a pure byte map (stays u8), on the host.
+
+    Multiplying centered sample x = 2u - 255 by j**(k+phase) only swaps
+    and/or negates I/Q, and negation in byte space is the complement
+    255 - u — the same trick the reference rotates with on its host
+    thread (simple_fm.rs:276-334).  Per complex sample k with
+    p = (k + phase) % 4::
+
+        p=0: (I, Q)    p=1: (255-Q, I)    p=2: (255-I, 255-Q)
+        p=3: (Q, 255-I)
+
+    Any even byte length.  Native SIMD path with a numpy fallback."""
     iq = np.ascontiguousarray(iq, dtype=np.uint8)
+    if iq.size % 2:
+        raise ValueError(f"I/Q buffer of {iq.size} bytes is not whole pairs")
     if _native.available():
         out = np.empty_like(iq)
         _lib().tsdr_rotate_fs4_u8(
@@ -142,9 +152,12 @@ def rotate_fs4_u8(iq: np.ndarray, phase: int = 0) -> np.ndarray:
             out.ctypes.data_as(ctypes.c_void_p),
             iq.size // 2, int(phase) & 3)
         return out
-    from tpu_sdr.ops.pallas_fm import host_rotate_fs4_u8
-
-    return host_rotate_fs4_u8(iq, phase)
+    i, q = iq[0::2], iq[1::2]
+    p = (np.arange(i.size) + int(phase)) % 4
+    out = np.empty_like(iq)
+    out[0::2] = np.choose(p, [i, 255 - q, 255 - i, q])
+    out[1::2] = np.choose(p, [q, i, 255 - q, 255 - i])
+    return out
 
 
 def f32_to_s16(x: np.ndarray, scale: float = 0.9 * 32767.0) -> np.ndarray:

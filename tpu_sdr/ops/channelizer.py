@@ -1,14 +1,14 @@
 """Polyphase filter-bank (PFB) channelizer.
 
 The reference processes one station per process at one tuned frequency; a
-TPU chip can instead split a wideband capture into K critically-sampled
+single accelerator can instead split a wideband capture into K critically-sampled
 channels in one shot (BASELINE.json configs #3/#5: "256-tap FIR x 64
 channels, polyphase channelizer replacing direct FIR", and the 1024-channel
 pod-scale variant).
 
-TPU-first formulation: frame the stream into (m, K); each polyphase branch
+Formulation: frame the stream into (m, K); each polyphase branch
 is a T-tap FIR *down the frame axis* — expressed as T shifted elementwise
-multiply-accumulates over the framed array (VPU, fully fused by XLA; no
+multiply-accumulates over the framed array (fully fused by XLA; no
 gathers, T is small) — followed by one batched FFT across the channel axis
 (K lanes).  Channel k of frame m is
 
@@ -70,9 +70,8 @@ def pfb_mxu_matrices(h_poly: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
     ``M[t*K + p, k] = G[t, p] * exp(-2j pi p k / K)`` so that the whole
     channelizer is ``Y[m] = X_win[m] @ M`` with ``X_win[m, t*K+p] =
-    X[m-t, p]`` — a single MXU matmul instead of shifted VPU adds plus a
-    complex FFT (TPU has no native complex; the matmul form is ~30x
-    faster).  Returns (M_re, M_im).
+    X[m-t, p]`` — a single real matmul instead of shifted adds plus a
+    complex FFT.  Returns (M_re, M_im).
     """
     G = np.asarray(h_poly, dtype=np.float64)
     rows, K = G.shape
@@ -112,10 +111,10 @@ def pfb_analyze(re: jax.Array, im: jax.Array, h_poly: jax.Array, state: PfbState
     Returns ``(Y_re, Y_im, new_state)`` with Y of shape (m, K): frame m,
     channel k (critically sampled at fs/K; gain K at channel center).
 
-    TPU formulation: the branch filter + channel DFT collapse into one
-    multi-channel convolution along the frame axis (2K in / 2K out channels,
-    width ``rows``) — proper conv shapes lower onto the MXU, unlike shifted
-    slices (misaligned relayouts) or complex FFTs (no native complex).
+    The branch filter + channel DFT collapse into one multi-channel
+    convolution along the frame axis (2K in / 2K out channels, width
+    ``rows``), one library call instead of shifted slices plus a complex
+    FFT.
     """
     rows, K = h_poly.shape
     n = re.shape[0]
@@ -132,7 +131,8 @@ def pfb_analyze(re: jax.Array, im: jax.Array, h_poly: jax.Array, state: PfbState
         lhs, W, window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,  # TPU default is bf16 passes
+        # HIGHEST: an f32 conv may otherwise run in TF32 (~10 bits) on the GPU
+        precision=jax.lax.Precision.HIGHEST,
     )[0]  # (2K, m)
     hist_re = frames_re[frames_re.shape[0] - (rows - 1):]
     hist_im = frames_im[frames_im.shape[0] - (rows - 1):]

@@ -18,7 +18,7 @@ Unlike the reference — a per-sample mutable loop — every op here is a pure,
 jittable function with **static shapes**: streaming state is an explicit
 carry pytree and the data-dependent output length is returned as a traced
 count next to a padded output array.  That shape discipline is what lets the
-whole chain compile once under ``jax.jit`` / ``lax.scan`` and run on TPU.
+whole chain compile once under ``jax.jit`` / ``lax.scan`` and run on the device.
 
 Integer subtleties reproduced exactly:
 
@@ -179,16 +179,18 @@ def fast_atan2_i32(y: jax.Array, x: jax.Array) -> jax.Array:
     * pi is scaled to 2^14; pi/4 = 4096, 3pi/4 = 12288.
     * The product ``pi4 * (x -/+ yabs)`` is computed in i64 and **wrapped to
       i32 before the division** (``as i32 / denom`` in Rust), then divided
-      with truncation toward zero.
+      with truncation toward zero.  The low 32 bits of that i64 product are
+      exactly XLA's wrapping i32 product, so i32 operands need no i64 (and
+      no x64); wider operands are multiplied wide and truncated.
     * ``(0, 0)`` maps to 0.
     """
     pi4 = jnp.int32(1 << 12)
     pi34 = jnp.int32(3 * (1 << 12))
     yabs = jnp.abs(y)
 
-    num_pos = (pi4.astype(jnp.int64) * (x - yabs).astype(jnp.int64)).astype(jnp.int32)
+    num_pos = (pi4 * (x - yabs)).astype(jnp.int32)
     den_pos = x + yabs
-    num_neg = (pi4.astype(jnp.int64) * (x + yabs).astype(jnp.int64)).astype(jnp.int32)
+    num_neg = (pi4 * (x + yabs)).astype(jnp.int32)
     den_neg = yabs - x
 
     # Guard zero denominators (only reachable in the x==0,y==0 lane, which is
@@ -210,7 +212,8 @@ def exact_atan2_scaled(y: jax.Array, x: jax.Array) -> jax.Array:
     """``(atan2(im, re) / pi * 2^14) as i32`` (ref simple_fm.rs:370-374).
 
     Uses float64 when x64 is enabled (bit-exact vs the reference's f64 path);
-    degrades to float32 otherwise (TPU has no f64) with sub-LSB error.
+    degrades to float32 otherwise (the accelerator path runs without x64)
+    with sub-LSB error.
     """
     ftype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     ang = jnp.arctan2(y.astype(ftype), x.astype(ftype))

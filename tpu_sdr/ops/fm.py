@@ -1,14 +1,14 @@
-"""Fast float WBFM ops — the TPU throughput path.
+"""Fast float WBFM ops — the accelerator throughput path.
 
 The reference's data plane is a per-sample integer loop on the CPU
 (/root/reference/examples/simple_fm.rs:256-426).  These ops re-design each
-stage for XLA/TPU: everything is vectorized, statically shaped, carried
+stage for XLA: everything is vectorized, statically shaped, carried
 across blocks by explicit state pytrees, and fusable under one ``jit``:
 
 * u8 I/Q -> centered float32 (replacing simple_fm.rs:258-259),
 * fs/4 rotation as a sign-pattern multiply, no byte shuffling
   (replacing simple_fm.rs:276-334 incl. the NEON path),
-* decimating FIR via strided convolution (XLA lowers to MXU/VPU) replacing
+* decimating FIR as banded matmuls (or a strided convolution) replacing
   the boxcar sum (simple_fm.rs:337-352),
 * quadrature discriminator ``angle(x · conj(prev))`` (simple_fm.rs:355-405),
 * rational polyphase resampler replacing the boxcar resampler
@@ -35,11 +35,8 @@ def u8_to_f32(buf: jax.Array, scale: float = 1.0 / 127.5) -> tuple[jax.Array, ja
     """u8 interleaved I/Q -> (re, im) float32 centered at 0, scaled to ~[-1, 1].
 
     Deinterleaving is done by bitcasting byte pairs to int16 and splitting
-    the lo/hi bytes with integer ops — TPU has no native u8 vector path,
-    and a stride-2 slice (``x[0::2]``) of a multi-megabyte f32 vector
-    lowers to a cross-lane shuffle ~17x slower than this unpack (measured:
-    ~220 ms vs ~13 ms per 12.5M-pair block; the same trick the fused
-    Pallas kernel uses via its host-side i16 view).
+    the lo/hi bytes with integer ops instead of a stride-2 slice
+    (``x[0::2]``) of the unpacked vector, so no strided gather is needed.
     """
     x16 = lax.bitcast_convert_type(buf.reshape(-1, 2), jnp.int16)
     xi = x16.astype(jnp.int32)  # sign-extends; the masks below undo it
@@ -102,7 +99,7 @@ def fir_decimate(
     Block length must be a multiple of ``decim``; output length is exactly
     ``n // decim`` every block, so shapes stay static with no valid-count
     bookkeeping.  Implemented as a strided 1-D convolution (re/im batched),
-    which XLA lowers to TPU conv hardware.
+    which XLA lowers to a library convolution.
     """
     n = re.shape[0]
     assert n % decim == 0, "block length must be a multiple of the decimation"
@@ -116,7 +113,8 @@ def fir_decimate(
     y = lax.conv_general_dilated(
         x, w, window_strides=(decim,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
-        precision=lax.Precision.HIGHEST,  # TPU default is bf16 passes
+        # HIGHEST: an f32 conv may otherwise run in TF32 (~10 bits) on the GPU
+        precision=lax.Precision.HIGHEST,
     )
     out_re = y[0, 0]
     out_im = y[1, 0]
@@ -128,14 +126,11 @@ def fir_decimate(
 
 
 # ---------------------------------------------------------------------------
-# MXU-shaped streaming FIR decimation
+# Matmul-shaped streaming FIR decimation
 # ---------------------------------------------------------------------------
 #
-# lax.conv_general_dilated on a multi-million-sample 1-D signal lowers
-# catastrophically on TPU (hundreds of seconds of compile, ~30x off the
-# bandwidth ceiling at runtime).  The TPU-native formulation: block the
-# output axis into chunks of 128 and express each chunk as a matmul with a
-# banded weight matrix
+# The decimating FIR as matmuls: block the output axis into chunks of 128
+# and express each chunk as a matmul with a banded weight matrix
 #
 #     W[r*decim + j, r] = taps_rev[j]        (r < 128, j < L)
 #
@@ -159,12 +154,12 @@ def make_split_bf16(W: np.ndarray, scale: float = 255.0):
     """Split a weight matrix into (W_hi, W_lo) bfloat16 pair such that
     ``x @ W ≈ (x*scale) @ W_hi + (x*scale) @ W_lo`` to ~16-bit precision.
 
-    The split-precision MXU trick: samples scaled by 255 from the u8 path
+    The split-precision trick: samples scaled by 255 from the u8 path
     are *exact* 9-bit integers, hence exactly representable in bfloat16, so
     casting the data costs nothing in accuracy; the weights carry the
     rounding error, which the hi+lo pair reduces from 2^-8 to ~2^-16 —
-    comfortably above the 60 dB fidelity bound while running the matmuls at
-    the MXU's 4x bfloat16 rate.
+    comfortably above the 60 dB fidelity bound with bf16 operands and f32
+    accumulation.
     """
     Ws = np.asarray(W, dtype=np.float64) / scale
     W_hi = np.asarray(jnp.asarray(Ws, dtype=jnp.bfloat16))
@@ -202,8 +197,8 @@ def banded_decim_apply(xext: jax.Array, W: jax.Array, decim: int, m: int,
     (B, m) decimated outputs ``y[b, k] = sum_j taps_rev[j] xext[b, k*decim+j]``.
 
     With ``W_split=(W_hi, W_lo)`` (see :func:`make_split_bf16`) the matmul
-    runs in split-precision bfloat16 on the MXU (~4x the f32 rate, two
-    passes -> net ~2x, ~16-bit effective weight precision).
+    runs in split-precision bfloat16 (two bf16 passes with f32
+    accumulation, ~16-bit effective weight precision).
     """
     B = xext.shape[0]
     step = chunk_out * decim
@@ -219,8 +214,8 @@ def banded_decim_apply(xext: jax.Array, W: jax.Array, decim: int, m: int,
             + jax.lax.dot_general(fe, W_lo, dn, preferred_element_type=jnp.float32)
         )
     else:
-        # HIGHEST: TPU's default matmul precision is bf16 passes, which
-        # would silently cap the "f32" quality path near 53 dB
+        # HIGHEST: a lower precision (bf16 passes, or TF32 on the GPU)
+        # would silently cap the "f32" quality path
         y = jax.lax.dot_general(
             frames.reshape(B * nchunks, row_len), W, dn,
             preferred_element_type=jnp.float32,
@@ -234,11 +229,11 @@ def fir_decimate_mxu(
     state: FirState, chunk_out: int = 128,
     W_split: tuple[jax.Array, jax.Array] | None = None,
 ):
-    """Streaming decimating FIR as chunked banded matmuls (MXU path).
+    """Streaming decimating FIR as chunked banded matmuls.
 
     Bit-compatible with :func:`fir_decimate` (same window alignment); block
     length must be a multiple of ``decim``.  ``W_split`` selects the
-    split-precision bfloat16 MXU path (see :func:`banded_decim_apply`).
+    split-precision bfloat16 path (see :func:`banded_decim_apply`).
     """
     n = re.shape[0]
     assert n % decim == 0
@@ -292,7 +287,7 @@ def make_aligned_poly_matrix(h_poly: np.ndarray, up: int, down: int,
 
     ``frames_per_row`` packs that many consecutive frames into each
     matmul row (shape (down*F + T - 1, up*F), column u + up*k = column u
-    shifted by down*k): with up=32, F=4 fills all 128 MXU lanes instead
+    shifted by down*k): with up=32, F=4 gives 128 output columns instead
     of 32 — fewer, denser passes for the identical result."""
     hp = np.asarray(h_poly, dtype=np.float32)
     T = hp.shape[1]
@@ -344,10 +339,10 @@ def aligned_resample(x: jax.Array, V: jax.Array, up: int, down: int,
     frame span (``down`` times V's frames-per-row packing); emits exactly
     ``len(x)//down * up`` samples.
 
-    ``precision`` applies to the frame matmul.  HIGH (3 bf16 passes,
-    ~2^-21 relative, >=120 dB audio) is the measured-right default for
-    the wbfm epilogue; accuracy-critical callers (e.g. RDS bitstream
-    recovery) may pass HIGHEST."""
+    ``precision`` applies to the frame matmul: HIGH by default for the wbfm
+    audio epilogue, whose fidelity gates (tests; ``chip_smoke.py`` GPU vs
+    CPU) hold it; accuracy-critical callers (e.g. RDS bitstream recovery)
+    pass HIGHEST."""
     F_ = V.shape[1] // up  # frames packed per matmul row (N-lane packing)
     span = down * F_
     Tm1 = V.shape[0] - span
@@ -358,8 +353,7 @@ def aligned_resample(x: jax.Array, V: jax.Array, up: int, down: int,
         # Row-view construction: frame bodies are the FREE reshape of x
         # itself (row-major), and each frame's T-1 history is the tail of
         # the previous row (the carried hist for row 0) — no offset-slice
-        # reshape of the concatenated buffer.  Interleaved on-chip A/B
-        # (round 4): 0.177 -> 0.165 ms/block on the whole fused path.
+        # reshape of the concatenated buffer.
         zr = x.reshape(R, span)
         left = jnp.concatenate([state.hist[None, :],
                                 zr[:-1, span - Tm1:]], axis=0)
@@ -374,10 +368,6 @@ def aligned_resample(x: jax.Array, V: jax.Array, up: int, down: int,
     y = jax.lax.dot_general(
         frames, V, dimension_numbers=(((1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
-        # HIGH = 3 bf16 passes ≈ f32 (~2^-21 relative, ≥120 dB audio).
-        # HIGHEST (6 passes) measured 6.6% of the WHOLE fused path on
-        # TPU (0.227 -> 0.212 ms/block, round-4 interleaved A/B) for
-        # accuracy nothing downstream can observe.
         precision=precision,
     )  # (R, up*F)
     return y.reshape(R * up * F_), new_state
@@ -409,7 +399,7 @@ def fast_atan2_f32(y: jax.Array, x: jax.Array) -> jax.Array:
 
     Using the *same approximation* (not true atan2) keeps the fast chain
     within the >=60 dB SNR bound of the reference output — and it is cheaper
-    on the VPU than a transcendental: one divide, no atan.
+    than a transcendental: one divide, no atan.
     """
     pi4 = jnp.float32(np.pi / 4)
     pi34 = jnp.float32(3 * np.pi / 4)
@@ -590,7 +580,7 @@ def deemphasis(x: jax.Array, alpha: float, state: DeemphState):
 
     The first-order recurrence ``y[k] = a*y[k-1] + b[k]`` composes
     associatively — ``(a2,b2)∘(a1,b1) = (a1*a2, a2*b1 + b2)`` — so
-    ``lax.associative_scan`` evaluates it in log depth on the VPU.
+    ``lax.associative_scan`` evaluates it in log depth.
     """
     a = jnp.float32(1.0 - alpha)
     b = x * jnp.float32(alpha)

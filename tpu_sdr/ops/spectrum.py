@@ -1,11 +1,11 @@
-"""Streaming power-spectral-density estimation (Welch) on the TPU.
+"""Streaming power-spectral-density estimation (Welch) on the device.
 
 The data plane for the ``rtl_power``-style scanner (apps/rtl_power.py):
 u8 I/Q blocks -> i16-bitcast unpack (ops/fm.u8_to_f32) -> windowed
 segments -> complex FFT -> accumulated power bins, all under one ``jit``
 with an explicit ``(carry, block) -> carry`` streaming shape like every
 other op in this framework (SURVEY.md §5 long-context carry).  The FFT
-rides XLA's native TPU lowering; the accumulator stays on device across
+rides XLA's FFT lowering; the accumulator stays on device across
 blocks and is read back once per hop.
 
 Beyond-reference: ccostes/rtl-sdr-rs has no spectrum tool; osmocom

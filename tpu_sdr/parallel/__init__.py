@@ -1,7 +1,7 @@
 """Parallelism layer: device meshes, halo exchange, sharded receive chains.
 
 The reference's only concurrency is two host threads and a channel
-(SURVEY.md §2); here the stream scales across TPU chips: DP = vmapped
-stations, SP = time-axis sharding with overlap-save halo exchange over ICI,
-TP = channel-sharded filter banks.
+(SURVEY.md §2); here the stream scales across devices: DP = vmapped
+stations, SP = time-axis sharding with overlap-save halo exchange
+(``ppermute``), TP = channel-sharded filter banks.
 """

@@ -1,11 +1,11 @@
 """Pod-scale channelized receiver: PFB + per-channel demod over a mesh.
 
 BASELINE.json config #5 ("1024-channel channelizer + demod sharded over
-N hosts with boundary halo collectives"), built the TPU way:
+N hosts with boundary halo collectives"), built with collectives:
 
 1. the wideband stream is **time-sharded** over ``sp``; each chip pulls a
    (branch_rows-1) frame halo from its left neighbor (``ppermute`` over
-   ICI) and runs the local PFB — identical math to the serial op,
+   NVLink on one host) and runs the local PFB — identical math to the serial op,
 2. one ``all_to_all`` re-shards the (frames, channels) matrix from
    time-sharded to **channel-sharded** — the classic FFT/transpose pattern;
    after it every chip owns all frames of K/S channels,

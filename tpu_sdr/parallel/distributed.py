@@ -2,17 +2,17 @@
 
 The reference is a single-process driver; its only "interconnects" are a
 USB bulk endpoint and TCP (/root/reference/src/device/mod.rs:141-143,
-examples/rtl_tcp.rs:92-96).  At TPU-pod scale the same receive chain spans
+examples/rtl_tcp.rs:92-96).  At multi-host scale the same receive chain spans
 hosts: this module wires ``jax.distributed.initialize`` (the JAX
-multi-process runtime), builds the DCN-aware ``(hosts, chips)`` mesh, and
+multi-process runtime), builds the ``(hosts, devices)`` mesh, and
 fans the feeder out so each host supplies only its own stations' bytes.
 
 Layout policy: stations shard over the HOST axis (``dp``) and time over
-each host's local chips (``sp``).  Consequences:
+each host's local devices (``sp``).  Consequences:
 
 * the overlap-save halo exchanges of the sharded chains
-  (parallel/wbfm_sharded*, ~100 B/shard/block along ``sp``) ride ICI only,
-  never DCN;
+  (parallel/wbfm_sharded, ~100 B/shard/block along ``sp``) stay inside a
+  host, never crossing the network;
 * no sample bytes ever cross hosts — each host's feeder thread pins its
   own stations' blocks to its own chips
   (``jax.make_array_from_process_local_data`` moves host-local numpy
@@ -42,10 +42,10 @@ def init_distributed(coordinator_address: str | None = None,
                      cpu_collectives: str = "gloo") -> None:
     """Initialize the JAX multi-process runtime (idempotent).
 
-    With no arguments, auto-detects managed environments (TPU pods, SLURM)
+    With no arguments, auto-detects managed environments (e.g. SLURM)
     or degenerates to a single-process runtime.  ``cpu_collectives``
     selects the CPU cross-process collective transport (gloo by default;
-    ignored on TPU where collectives ride ICI/DCN natively).
+    GPU collectives go through NCCL).
     """
     global _initialized
     if _initialized:
@@ -84,8 +84,8 @@ def make_host_mesh(axis_names: tuple[str, str] = ("dp", "sp")) -> Mesh:
 
     Host axis first: devices are grouped by owning process, so the minor
     axis (``sp`` — the time/halo axis of the sharded chains) stays inside
-    each host's ICI domain and the major axis (``dp`` — stations) crosses
-    DCN, where the chains exchange nothing.
+    each host and the major axis (``dp`` — stations) crosses hosts, where
+    the chains exchange nothing.
     """
     n_proc = jax.process_count()
     per_host = jax.local_device_count()
@@ -132,12 +132,10 @@ def fetch_global(x: jax.Array) -> np.ndarray:
 
 
 def multihost_wbfm_apply(chain, local_blocks: np.ndarray):
-    """Run a sharded WBFM chain (wbfm_sharded / wbfm_sharded_pallas) fed
-    with this host's station blocks only.
+    """Run a sharded WBFM chain (parallel/wbfm_sharded) fed with this
+    host's station blocks only.
 
-    ``local_blocks``: u8 (local_stations, bytes) for the XLA chain, or the
-    int16 view (local_stations, n_complex) for the Pallas chain (see
-    ``wbfm_sharded_pallas.view_blocks_as_i16``).
+    ``local_blocks``: u8 (local_stations, bytes).
     """
     x = put_host_local_blocks(chain.in_sharding, local_blocks)
     return chain(x)

@@ -4,9 +4,8 @@ The streaming carries of the serial chain (FIR history, discriminator
 previous sample — ref simple_fm.rs:232-239) become *halo exchanges* when
 the time axis is sharded: each shard needs the trailing samples of its left
 neighbor (overlap-save).  Implemented with ``lax.ppermute`` inside
-``shard_map`` — a pure ICI neighbor shift, the cheapest possible collective
-(SURVEY.md §5; the Pallas ``make_async_remote_copy`` pattern is the
-kernel-level equivalent for pod scale).
+``shard_map`` — a pure neighbor shift, the cheapest possible collective
+(SURVEY.md §5), which XLA hands to NCCL on GPUs; no kernel is needed.
 """
 
 from __future__ import annotations

@@ -2,9 +2,10 @@
 
 The distributed runtime the reference never had (SURVEY.md §2): device
 meshes with named axes — ``dp`` (stations / batch), ``sp`` (time-axis
-sequence parallelism).  Collectives ride ICI inside ``shard_map``; on
-multi-host pods ``jax.distributed.initialize`` extends the same mesh over
-DCN transparently.
+sequence parallelism).  Collectives run inside ``shard_map`` (NCCL over
+NVLink between the GPUs of one host; every card reaches every other at the
+same rate, so the mesh follows the algorithm alone); across hosts
+``jax.distributed.initialize`` extends the same mesh.
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
 """Multi-chip WBFM: stations x time sharded over a (dp, sp) mesh.
 
-The TPU-native replacement for the reference's two host threads
+The device-mesh replacement for the reference's two host threads
 (SURVEY.md §2 "parallelism components"): the unbounded sample stream is
 blocked into large device arrays, sharded
 
 * over ``dp`` by station (data parallelism — independent receivers on the
   same wideband block or different blocks), and
 * over ``sp`` along time (sequence parallelism): each chip demodulates its
-  time slice after pulling a small halo from its left neighbor over ICI
+  time slice after pulling a small halo from its left neighbor
   (``lax.ppermute`` inside ``shard_map``) — the overlap-save analog of the
   serial chain's streaming carries (simple_fm.rs:232-239).
 
@@ -228,10 +228,10 @@ def resample_shard(demod, config: WbfmConfig, params, axis_name: str,
     """Per-shard audio resampler with global-phase closed forms.
 
     ``demod``: (stations_loc, n_out) discriminator output for this time
-    shard.  Pulls the left-neighbor halo over ICI and emits
+    shard.  Pulls the left-neighbor halo and emits
     ``(audio (stations_loc, m_max), count (1,))`` — emission counts are
     data-independent functions of the global shard offset, so shapes stay
-    static.  Shared by the XLA and Pallas sharded front-ends.
+    static.
 
     ``left_edge``: optional (stations_loc, halo) demod history injected as
     shard 0's halo — the previous block's global tail, for block-to-block
@@ -257,7 +257,7 @@ def resample_shard(demod, config: WbfmConfig, params, axis_name: str,
         f"time shard too small for the single-neighbor resampler halo: "
         f"n_out={n_out} needs >= {max_halo} demodulated samples")
     if aligned:
-        # Frame-matmul path (MXU): every shard starts on a frame boundary,
+        # Frame-matmul path: every shard starts on a frame boundary,
         # so the per-shard resample is the serial aligned op with the left
         # halo as history.
         if config.filter_mode == "boxcar":

@@ -1,9 +1,9 @@
 """Host feeders: pull u8 I/Q blocks from a source and stream them to the
-TPU data plane.
+device data plane.
 
 The reference's ingest is a blocking two-thread pipeline
 (/root/reference/examples/simple_fm.rs:55-63, rtl_tcp.rs:378-400).  The
-TPU-native equivalent (SURVEY.md §7 layer 3): a reader thread fills a
+device-fed equivalent (SURVEY.md §7 layer 3): a reader thread fills a
 bounded queue; the consumer overlaps ``jax.device_put`` of block N+1 with
 device compute on block N (double buffering), since JAX dispatch is async.
 
@@ -12,7 +12,8 @@ Sources:
 * :class:`FileSource` — raw capture file (simple_fm.rs READ_FROM_FILE mode),
 * :class:`DeviceSource` — an opened :class:`tpu_sdr.api.RtlSdr`,
 * :class:`RtlTcpClientSource` — client side of the rtl_tcp protocol, so any
-  rtl_tcp server (including the reference implementation) can feed a TPU.
+  rtl_tcp server (including the reference implementation) can feed the
+  device.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """FIR filter design (host-side, numpy).
 
 The reference has no filter design — its "low pass" is a boxcar sum
-(/root/reference/examples/simple_fm.rs:337-352).  The TPU-native fast path
+(/root/reference/examples/simple_fm.rs:337-352).  The accelerator fast path
 replaces the boxcar with proper windowed-sinc FIR filters (BASELINE.json
 north star: "FIR low-pass + decimation recast as a polyphase/overlap-save
 FFT filter"), designed here once on the host.

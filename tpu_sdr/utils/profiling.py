@@ -2,11 +2,11 @@
 
 The reference's only instrumentation is a per-block wall-clock average in
 the demod thread plus a buffer-latency log line
-(/root/reference/examples/simple_fm.rs:101-104,143-168).  The TPU framework
+(/root/reference/examples/simple_fm.rs:101-104,143-168).  This framework
 generalizes that into: (a) :class:`BlockStats`, a running samples/s /
 latency meter with the same running-average semantics, and (b)
 :func:`trace`, a context manager around ``jax.profiler`` so any streaming
-run can emit a TensorBoard-loadable device trace (the TPU-native equivalent
+run can emit a TensorBoard-loadable device trace (the device-side equivalent
 of the `Instant::now()` pair the reference uses).
 """
 
